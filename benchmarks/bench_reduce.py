@@ -1,7 +1,7 @@
 """Profile the phase-boundary reduce: part save -> merge -> finalize ->
 save -> phase-2 load.
 
-VERDICT r2 measured the serial merge/finalize tail at ~1 s/M reads,
+Round 2 measured the serial merge/finalize tail at ~1 s/M reads,
 which Amdahl-sinks the 20-core WGS projection (the reference's
 MergeSVLoci + workflow boundary costs seconds at WGS scale, not
 minutes — MergeSVLoci.cpp:48-62, mantaWorkflow.py:349-437). This

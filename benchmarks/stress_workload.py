@@ -28,7 +28,6 @@ sys.path.insert(0, REPO)
 _VDEMO = os.path.join(REPO, "tests", "data", "demo")
 DEMO = _VDEMO if os.path.isdir(_VDEMO) else "/root/reference/src/demo/data"
 TUMOR = f"{DEMO}/G15512.HCC1954.1.COST16011_region.bam"
-DEMO_FA = f"{REPO}/.testdata/Homo_sapiens_assembly19.COST16011_region.fa"
 
 W8 = (107650000, 107660000)
 W11 = (94970000, 94995000)
@@ -83,14 +82,14 @@ def generate(tiles: int, out_prefix: str, depth_frac: float = 1.0,
     supplementary records so candidates are pair-only/IMPRECISE and the
     refiner aligns contigs against full breakend-CI-wide reference
     windows — the high-spanning-contig shape whose phase-2 cost is
-    dominated by jump-contig alignment (docs/PERF_r05.md TPU e2e win
-    measurement)."""
+    dominated by jump-contig alignment."""
     from manta_tpu.io.bam import BamReader
     from manta_tpu.io.bamwriter import BamWriter
     from manta_tpu.io.fasta import FastaReader
 
+    from __graft_entry__ import demo_fasta_path
     src = BamReader(TUMOR)
-    fa = FastaReader(DEMO_FA)
+    fa = FastaReader(demo_fasta_path())
     t8 = src.header.name_to_tid["8"]
     t11 = src.header.name_to_tid["11"]
     b8 = src.fetch(t8, *W8)

@@ -1235,7 +1235,7 @@ def main():
     ap.add_argument("--repeats", action="store_true",
                     help="adversarial genome content: satellite arrays,"
                          " segdup families + read mismapping, "
-                         "low-complexity runs (docs/PERF_r04.md)")
+                         "low-complexity runs")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--mode", default="germline",
                     choices=("germline", "tumor"))

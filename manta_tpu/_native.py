@@ -33,6 +33,15 @@ class MtAsmResult(ctypes.Structure):
     ]
 
 
+def _deflate_flags() -> list[str]:
+    """Link libdeflate where the host has it (faster BGZF inflate and
+    deflate), else build the zlib stand-ins (-DMANTA_ZLIB)."""
+    import ctypes.util
+    if ctypes.util.find_library("deflate"):
+        return ["-l:libdeflate.so.0"]
+    return ["-DMANTA_ZLIB", "-lz"]
+
+
 def get_lib():
     global _LIB
     if _LIB is not None:
@@ -47,12 +56,21 @@ def get_lib():
     so = os.path.abspath(os.path.join(_NATIVE_DIR, name))
     if (not os.path.exists(so)) or \
             os.path.getmtime(so) < os.path.getmtime(src):
-        cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", so, src,
-               "-ldeflate", "-lpthread"]
+        # built from the committed source at first use; concurrent first
+        # users (test workers, forked phases) each write their own temp
+        # file and atomically rename it into place
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, src,
+               *_deflate_flags(), "-lpthread"]
         if is_asan:
             cmd[1:1] = ["-g", "-fsanitize=address",
                         "-fno-omit-frame-pointer"]
-        subprocess.run(cmd, check=True)
+        try:
+            subprocess.run(cmd, check=True)
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
     lib = ctypes.CDLL(so)
 
     lib.mt_bam_size.restype = ctypes.c_int

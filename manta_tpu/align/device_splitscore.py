@@ -1,6 +1,6 @@
 """Batched split-read likelihood scoring on device (JAX/XLA).
 
-This is the TPU port of the phase-2 scoring hot loop: the sliding
+The device form of the phase-2 split-read scan: the sliding
 basecall-likelihood scan of reads across breakpoint junction targets
 (host reference implementation: scoring/evidence.py split_read_aligner;
 reference semantics: GenerateSVCandidates/SplitReadAlignment.cpp).
@@ -15,9 +15,10 @@ program serves all edges:
 
 The scan positions k in [scan_start, scan_end] are evaluated in
 parallel; per-base terms use precomputed ln-probability LUTs and a
-score-range gate; accumulation is float32 cumsum to match the host
-summation order exactly. Outputs (best lnlhood, best pos) feed the
-flank/mismatch bookkeeping, which stays on host (cheap, O(L)).
+score-range gate; accumulation is a sequential float32 lax.scan over
+read bases, in the host scan's summation order, so results are
+bit-identical. Outputs (best lnlhood, best pos) feed the flank/mismatch
+bookkeeping, which stays on host (cheap, O(L)).
 
 Sharding: batch dimension is data-parallel; see parallel/mesh.py.
 """

@@ -1,11 +1,11 @@
-"""MXU (matmul) formulation of batched split-read scoring.
+"""Matrix-product ("mxu" mode) formulation of batched split-read scoring.
 
 The exact kernel (device_splitscore.batched_split_score) evaluates the
 sliding basecall-likelihood scan as a masked gather + elementwise
-reduction — VPU work. In production (scoring/scorer._score_split_reads)
+reduction — elementwise vector work. In production (scoring/scorer._score_split_reads)
 every candidate read at a junction scores against the SAME target
 sequences and the SAME microhomology range, which factors the scan into
-per-symbol correlations and puts the FLOPs on the MXU:
+per-symbol correlations and puts the FLOPs in matrix products:
 
   term(r, j, s) = gate(s+j) * [ lnx(r,j)
                                 + (read_r[j] == target[s+j]) * delta(r,j)
@@ -16,17 +16,18 @@ per-symbol correlations and puts the FLOPs on the MXU:
 
   score(r, s) = sum_j term
               = prefix-sum base part                     (O(R*S) gathers)
-              + K(r, :) @ Tmat(:, s)                     (MXU matmul)
+              + K(r, :) @ Tmat(:, s)                     (matmul)
 
   K    (R, 5L): 4 match channels (delta * onehot_c(read)) + 1 N channel
   Tmat (5L, S): gated target indicator Toeplitz
                 Tmat[cL+j, s] = gate(s0+s+j) * onehot_c(target[s0+s+j])
 
 Tmat entries are exactly representable in bf16 (0/1); K is split into
-bf16 hi/lo halves (two matmuls, float32 MXU accumulation), giving
-~1e-6 relative accuracy — near-exact but NOT bit-identical to the host
-scan's sequential float32 order (the exact kernel remains the default
-for oracle-exact production scoring).
+bf16 hi/lo halves (hi rounded in integer bit arithmetic; two matmuls
+with explicit bf16 operands and float32 accumulation, so TF32 never
+applies on a GPU), giving ~1e-4 absolute score accuracy — near-exact
+but NOT bit-identical to the host scan's sequential float32 order (the
+exact kernel remains the default for oracle-exact production scoring).
 
 Reference semantics: GenerateSVCandidates/SplitReadAlignment.cpp
 (sliding scan, qscore ln-likelihood terms, score-range gate).
@@ -85,8 +86,14 @@ def junction_split_score(reads, quals, targets, s0, bp_beg, bp_end,
     # K: (G, R, 5, L) -> (G, R, 5L); channel c holds delta on read==c
     ch = [delta * (reads == c) for c in _ACGT] + [nadj]
     K = jnp.stack(ch, axis=2).reshape(G, R, 5 * L)
-    K_hi = K.astype(jnp.bfloat16)
-    K_lo = (K - K_hi.astype(jnp.float32)).astype(jnp.bfloat16)
+    # hi = K rounded to bf16 in integer bit arithmetic, so the split has
+    # no f32 -> bf16 -> f32 round trip: XLA may drop such a pair as
+    # excess precision (the GPU backend does), which zeroes K_lo
+    K_hi32 = jax.lax.bitcast_convert_type(
+        (jax.lax.bitcast_convert_type(K, jnp.uint32) + jnp.uint32(0x8000))
+        & jnp.uint32(0xFFFF0000), jnp.float32)
+    K_hi = K_hi32.astype(jnp.bfloat16)                   # exact
+    K_lo = (K - K_hi32).astype(jnp.bfloat16)
 
     # ---- gated target Toeplitz (G, 5, L, S) -> (G, 5L, S), bf16-exact
     p = s0[:, None, None] + j[:, None] + s[None, :]              # (G, L, S)

@@ -3,7 +3,7 @@
 Equivalent in capability to the reference's htsapi layer
 (src/c++/lib/htsapi: bam_streamer, bam_record, fasta/tabix readers), but
 implemented from the HTS format specifications, producing packed
-struct-of-arrays read batches suited to feeding TPU kernels instead of
+struct-of-arrays read batches suited to feeding device kernels instead of
 per-record object streams.
 """
 

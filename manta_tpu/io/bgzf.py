@@ -116,8 +116,7 @@ _BLOCK_CACHE: dict[tuple, tuple[bytes, int]] = {}
 def node_mem_gb() -> float:
     """Node memory as seen by IO-cache sizing. MANTA_TPU_NODE_GB
     overrides the probed value — for bounding memory on shared hosts,
-    and for testing configurations on a different-size box (the
-    FFPE-depth memory experiment in docs/PERF_r03.md)."""
+    and for testing configurations on a different-size box."""
     env = os.environ.get("MANTA_TPU_NODE_GB")
     if env:
         return float(env)
@@ -148,9 +147,9 @@ def _default_cache_blocks() -> int:
     is the reference-like ~192 MB per process: a round-4 A/B on the
     44.7 M-read WGS workload measured the node-scaled 1.5 GB tier
     STRICTLY worse (phase-2 wall 35.7 → 22.5 s, whole-run peak
-    anonymous RSS 4.9 → 1.5 GB at -j2, docs/PERF_r04.md), and round 3
-    measured the small tier at CPU parity on the 290x deep-exome shape
-    (docs/PERF_r03.md). Edge-ordered phase-2 fetches reuse little
+    anonymous RSS 4.9 → 1.5 GB at -j2 on a 2-core host), and round 3
+    measured the small tier at CPU parity on the 290x deep-exome shape.
+    Edge-ordered phase-2 fetches reuse little
     beyond the hot window, so a big LRU only buys eviction and
     allocator churn. MANTA_TPU_NODE_GB ≥ 64 opts back into the large
     tiers for access patterns that measure otherwise."""

@@ -1,1 +1,1 @@
-from .mesh import make_mesh, shard_batch_spec  # noqa: F401
+"""Process, host and device-mesh scale-out helpers."""

@@ -1,14 +1,13 @@
 """Multi-host scale-out: jax.distributed runtime + host-sharded phases.
 
 The reference scales across one machine's cores via pyflow task
-scheduling (mantaWorkflow.py); the TPU-native analogue spans hosts of
-a pod slice:
+scheduling (mantaWorkflow.py); this analogue spans several hosts:
 
-- device collectives ride ICI within each host's chips (the mesh
+- device collectives stay within each host's devices (the mesh
   shardings in parallel/mesh.py + scan_parallel.py);
 - cross-host coupling is limited to the phase boundaries, where
   genome-segment-group graphs and edge-bin VCF shards are exchanged
-  through a shared directory (DCN/NFS) exactly like the reference's
+  through a shared directory (e.g. NFS) exactly like the reference's
   per-task file handoff — graphs are variable-size host objects, so a
   filesystem/DCN exchange with a DETERMINISTIC merge order (group
   index, then bin index) replaces collective gathers;
@@ -39,9 +38,10 @@ def init_runtime(coordinator_address: str | None = None,
                  num_processes: int | None = None,
                  process_id: int | None = None):
     """Initialize the jax.distributed runtime (no-op for a single
-    process). Arguments default to JAX's standard environment
-    autodetection (JAX_COORDINATOR_ADDRESS / NUM_PROCESSES /
-    PROCESS_ID or the TPU pod metadata server)."""
+    process). Without arguments JAX falls back to its cluster
+    autodetection, which finds nothing on a plain GPU host: pass
+    coordinator_address ("localhost:<port>" on one machine),
+    num_processes and process_id."""
     import jax
     if num_processes == 1:
         return

@@ -6,7 +6,7 @@ SVLocusSetFinder::update, SVLocusSetFinder.cpp:79-170 +
 SVLocusScanner::isSVEvidence, SVLocusScanner.cpp:1437) — is pure
 elementwise mask arithmetic over fixed-width read columns, i.e. an
 ideal XLA kernel. The production pipeline runs it host-side (a measured
-Amdahl decision: phase 1 is IO-bound, docs/PERF_r02.md), but the math
+Amdahl decision: phase 1 is IO-bound on the host), but the math
 itself is device-clean; this module is the jnp twin of the numpy
 building blocks in core/readfilter.py, held bit-identical by
 tests/test_phase1_mesh.py and executed under the multichip dryrun's

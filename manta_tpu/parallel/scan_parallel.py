@@ -1,6 +1,6 @@
 """Scan-position (sequence-parallel) sharding of split-read scoring.
 
-The MXU junction kernel (align/device_splitscore_mxu) evaluates an
+The matrix-product junction kernel (align/device_splitscore_mxu) evaluates an
 (R reads x S scan-positions) score matrix per junction. For very long
 targets (large insertions, long homology tracts) S is the long axis —
 the domain analogue of sequence length. This module shards S over a
@@ -8,14 +8,14 @@ mesh axis with ``shard_map``: every device scores ALL reads against its
 contiguous slice of scan positions (the per-device grid offset rides in
 through the kernel's ``s0`` operand), then one max + tie-lowest-position
 combine runs over the mesh axis (``lax.pmax`` / masked ``lax.pmin`` —
-XLA lowers these to ICI collectives on real hardware).
+collectives XLA hands to NCCL on GPUs).
 
 Tie-breaking matches the single-device kernels: the winning position is
 the LOWEST scan position among score ties, which argmax gives for free
 within a shard and the masked pmin restores across shards.
 
 Reference semantics: GenerateSVCandidates/SplitReadAlignment.cpp
-(sliding scan); parallel decomposition is TPU-native, no reference
+(sliding scan); the parallel decomposition is this project's, no reference
 equivalent (the reference is single-threaded per read here).
 """
 

@@ -1,4 +1,4 @@
-"""Device (TPU) routing for production split-read scoring.
+"""Device routing for production split-read scoring.
 
 Batches one breakend's candidate reads x junction targets into the
 jitted XLA scan kernel (align/device_splitscore.batched_split_score).
@@ -12,9 +12,10 @@ Two device formulations:
 - mxu: the matmul/Toeplitz factorization
   (align/device_splitscore_mxu.junction_split_score) that shares each
   junction target across all its reads and puts the O(R*S*L) term
-  evaluation on the MXU. ~1e-6 relative score error (bf16 hi/lo kernel
-  split, float32 accumulation); batches containing IUPAC codes outside
-  {A,C,G,T,N} fall back to the exact kernel.
+  evaluation on matrix products with explicit bf16 operands and float32
+  accumulation. ~1e-6 relative score error (bf16 hi/lo kernel split);
+  batches containing IUPAC codes outside {A,C,G,T,N} fall back to the
+  exact kernel.
 
 Shapes are bucketed (read length and scan length padded to fixed
 tiers) so a handful of compiled programs serve every junction.
@@ -82,16 +83,7 @@ class DeviceScanContext:
                                       read_lens, qconv, targets,
                                       bp_ranges, Tp)
             # IUPAC codes the one-hot factorization can't encode fall
-            # back to the Pallas VMEM kernel (LUT-driven, any byte):
-            # 80k scans/s on-chip vs 3.9k for the exact XLA form, and
-            # 'mxu' mode already accepts ~1e-6-class score error. Off
-            # TPU (tests force the CPU backend) Mosaic can't lower the
-            # kernel, so the exact form serves the fallback there.
-            import jax
-            return self._scan_exact(flank_score_size, reads, quals,
-                                    read_lens, qconv, targets, bp_ranges,
-                                    Tp,
-                                    pallas=jax.default_backend() == "tpu")
+            # back to the exact kernel (LUT-driven, any byte)
         return self._scan_exact(flank_score_size, reads, quals, read_lens,
                                 qconv, targets, bp_ranges, Tp)
 
@@ -103,13 +95,9 @@ class DeviceScanContext:
         return codes <= _ACGTN_PAD
 
     def _scan_exact(self, flank_score_size, reads, quals, read_lens,
-                    qconv, targets, bp_ranges, Tp, pallas=False):
+                    qconv, targets, bp_ranges, Tp):
         import jax
-        if pallas:
-            from ..align.pallas_splitscore import (
-                pallas_split_score as batched_split_score)
-        else:
-            from ..align.device_splitscore import batched_split_score
+        from ..align.device_splitscore import batched_split_score
 
         n, Lp = reads.shape
         t = len(targets)
@@ -128,12 +116,6 @@ class DeviceScanContext:
             tl[k::t] = len(tg)
         rl = np.repeat(read_lens, t)
         lut_m, lut_x = self._luts_for(qconv)
-        # stage explicitly: jit-compiling from host numpy args can
-        # produce a drastically slower executable (see
-        # align/device_jumpscore.jump_scores)
-        freads, fquals, tgts, bp_beg, bp_end, rl, tl = (
-            jax.device_put(a)
-            for a in (freads, fquals, tgts, bp_beg, bp_end, rl, tl))
         best, pos = batched_split_score(
             freads, fquals, tgts, bp_beg, bp_end, rl, tl,
             flank_score_size, lut_m, lut_x, n_scan=Tp)
@@ -149,7 +131,7 @@ class DeviceScanContext:
 
         n, Lp = reads.shape
         t = len(targets)
-        # one MXU group per target; every group scores the same reads
+        # one matmul group per target; every group scores the same reads
         greads = np.broadcast_to(reads, (t, n, Lp)).copy()
         gquals = np.broadcast_to(quals, (t, n, Lp)).copy()
         grl = np.broadcast_to(read_lens, (t, n)).copy()
@@ -164,9 +146,6 @@ class DeviceScanContext:
             tl[k] = len(tg)
         s0 = np.zeros(t, np.int32)
         lut_m, lut_x = self._luts_for(qconv)
-        greads, gquals, tgts, s0, bp_beg, bp_end, grl, tl = (
-            jax.device_put(a)
-            for a in (greads, gquals, tgts, s0, bp_beg, bp_end, grl, tl))
         best, pos = junction_split_score(
             greads, gquals, tgts, s0, bp_beg, bp_end, grl, tl,
             flank_score_size, lut_m, lut_x, n_scan=Tp)

@@ -47,8 +47,8 @@ _DGT_ALT_FRACTION = np.array([0.0, 0.5, 0.99])
 # junction-supporting fragments are produced by the alt allele itself.
 # Counting junction loci: het = 1 alt / (1 + 2 + 2) = 0.2,
 # hom = 2 alt / (2 + 4) = 1/3 — confirmed empirically on the 420 M-read
-# WGS workload (observed alt-support fractions: het 0.210, hom 0.340;
-# docs/PERF_r05.md). The mixture fractions below encode that structure.
+# WGS workload (observed alt-support fractions: het 0.210, hom 0.340).
+# The mixture fractions below encode that structure.
 _DGT_ALT_FRACTION_TANDUP = np.array([0.0, 0.2, 1.0 / 3.0])
 # expected interior/flank read-depth ratio per genotype for a tandem
 # duplication (ref, het, hom) — the depth channel the junction mixture
@@ -280,9 +280,8 @@ class SVScorer:
         self.alt_q = QscoreSnp(0.0)
         self._device_scan = None
         # 'jump' routes only contig jump scoring to the device (the
-        # refiner's backend); split scans stay on the host-native scan,
-        # which round-3 chip measurements put 77x ahead of the bit-
-        # exact device kernel per core (docs/PERF_r03.md)
+        # refiner's backend); split scans stay on the host-native scan
+        # unless 'exact' or 'mxu' asks for the device forms
         if use_device_scoring in ("exact", "mxu", True):
             from .device_scan import DeviceScanContext
             self._device_scan = DeviceScanContext(
@@ -428,7 +427,7 @@ class SVScorer:
                                     bam_index):
         """Whole-DUP-crossing fragment term — the channel that separates
         small hom from het tandem DUPs where the interior-depth window
-        is too narrow (~1.4 sigma at 200 bp; PERF_r05 §1 residuals).
+        is too narrow (~1.4 sigma at 200 bp).
 
         A fragment whose mates flank the ENTIRE duplication maps with a
         normal template length only when drawn from a reference-like
@@ -701,7 +700,7 @@ class SVScorer:
         rows = rows_all[fresh]
         rds = rds_all[fresh]
         # phase B: one scan for all reads x {alt,ref} x {bp1,bp2},
-        # routed to the TPU kernel when enabled (bit-identical results)
+        # routed to the device kernel when enabled (bit-identical results)
         from .evidence import split_finalize_multi, split_read_scan_multi
         scan = split_read_scan_multi
         if self._device_scan is not None and len(idx) >= 32:

@@ -6,7 +6,7 @@ is re-executed on the same run directory, skips tasks that already
 completed ("Continue workflows which have partially completed", pyflow
 README; user-facing behavior docs/userGuide/README.md:631-633).
 
-This module provides the same behavior for the TPU workflow: a small
+This module provides the same behavior for this workflow: a small
 JSON state file in `workspace/` maps task names to their completion
 records. A task is considered done only when (a) its record exists,
 (b) the run *signature* (the full parameter set of the run) matches the

@@ -1188,7 +1188,7 @@ inline void semi_aligned_one(
 
 // ---------------------------------------------------------------------------
 // Split-read junction scan (host production path; the device kernel in
-// align/device_splitscore.py is the TPU equivalent).
+// align/device_splitscore.py is the JAX equivalent).
 // Behavioral parity target (studied not copied):
 //   SplitReadAlignment.cpp splitReadAligner — per scan position the
 //   basecall ln-likelihoods accumulate in float32 in base order, ties
@@ -3847,6 +3847,10 @@ extern "C" int mt_align_jump_score_batch(
       std::swap(cm, pm); std::swap(cd, pd); std::swap(ci, pi); std::swap(cj, pj);
       cm[0] = 0; cd[0] = BAD; ci[0] = BAD; cj[0] = BAD;
       const char rc = ref1[r];
+      // the in-column insert chain rides in scalars (up_*): reading it
+      // back through cm/ci let GCC 12's -O3 loop vectorizer break the
+      // q -> q+1 dependence and return wrong maxima
+      int32_t up_m = 0, up_i = BAD;
       for (int q = 0; q < nq; q++) {
         int32_t vm, vd, vi, vj;
         best3(vm, pm[q], pd[q], pi[q]);
@@ -3854,11 +3858,12 @@ extern "C" int mt_align_jump_score_batch(
         best3(vd, pm[q + 1] + s_open, pd[q + 1], pi[q + 1]);
         vd += s_extend;
         if (q == 0) vd = BAD;
-        best3(vi, cm[q] + s_open, BAD, ci[q]);
+        best3(vi, up_m + s_open, BAD, up_i);
         vi += s_extend;
         if (q == 0) vi = BAD;
         best4(vj, vm + jmp, BAD, vi + jmp, pj[q + 1]);
         cm[q + 1] = vm; cd[q + 1] = vd; ci[q + 1] = vi; cj[q + 1] = vj;
+        up_m = vm; up_i = vi;
       }
       upd_btrace(bt, cm[nq], r + 1, nq);
     }
@@ -3873,16 +3878,18 @@ extern "C" int mt_align_jump_score_batch(
       std::swap(cm, pm); std::swap(cd, pd); std::swap(ci, pi); std::swap(cj, pj);
       cm[0] = 0; cd[0] = BAD; ci[0] = BAD; cj[0] = BAD;
       const char rc = ref2[r];
+      int32_t up_m = 0, up_i = BAD, up_j = BAD;
       for (int q = 0; q < nq; q++) {
         int32_t vm, vd, vi, vj;
         best4(vm, pm[q], pd[q], pi[q], pj[q]);
         vm += (query[q] == rc ? s_match : s_mismatch);
         best3(vd, pm[q + 1] + s_open, pd[q + 1], pi[q + 1]);
         vd += s_extend;
-        best4(vi, cm[q] + s_open, BAD, ci[q], cj[q]);
+        best4(vi, up_m + s_open, BAD, up_i, up_j);
         vi += s_extend;
         vj = pj[q + 1];
         cm[q + 1] = vm; cd[q + 1] = vd; ci[q + 1] = vi; cj[q + 1] = vj;
+        up_m = vm; up_i = vi; up_j = vj;
       }
       upd_btrace(bt, cm[nq], nr1 + r + 1, nq);
     }
@@ -3922,6 +3929,36 @@ extern "C" int mt_graph_clean_stride(void* h, int32_t tid, int32_t start,
 #include <thread>
 #include <atomic>
 
+#ifdef MANTA_ZLIB
+// Hosts without libdeflate build with -DMANTA_ZLIB: zlib stand-ins for
+// the libdeflate calls used here. The raw-deflate streams are
+// interchangeable; zlib's compressed bytes differ from libdeflate's,
+// the decompressed content does not.
+#include <zlib.h>
+struct libdeflate_decompressor { z_stream zs; };
+static libdeflate_decompressor* libdeflate_alloc_decompressor() {
+  auto* d = new libdeflate_decompressor();
+  if (inflateInit2(&d->zs, -15) != Z_OK) { delete d; return nullptr; }
+  return d;
+}
+static void libdeflate_free_decompressor(libdeflate_decompressor* d) {
+  inflateEnd(&d->zs);
+  delete d;
+}
+static int libdeflate_deflate_decompress(libdeflate_decompressor* d,
+                                         const void* in, size_t in_nbytes,
+                                         void* out, size_t out_nbytes_avail,
+                                         size_t* actual_out_nbytes_ret) {
+  if (inflateReset(&d->zs) != Z_OK) return 1;
+  d->zs.next_in = (Bytef*)in;
+  d->zs.avail_in = (uInt)in_nbytes;
+  d->zs.next_out = (Bytef*)out;
+  d->zs.avail_out = (uInt)out_nbytes_avail;
+  const int rc = inflate(&d->zs, Z_FINISH);
+  *actual_out_nbytes_ret = out_nbytes_avail - d->zs.avail_out;
+  return rc == Z_STREAM_END ? 0 : 1;
+}
+#else
 extern "C" {
 // minimal libdeflate ABI (linked against libdeflate.so.0)
 struct libdeflate_decompressor;
@@ -3932,6 +3969,7 @@ int libdeflate_deflate_decompress(struct libdeflate_decompressor*,
                                   void* out, size_t out_nbytes_avail,
                                   size_t* actual_out_nbytes_ret);
 }
+#endif
 
 extern "C" int mt_bgzf_inflate_batch(
     int64_t n_blocks,
@@ -4122,6 +4160,36 @@ extern "C" int64_t mt_bam_depth_cols(
 // out_len; the caller compacts. Powers the external-merge sorted BAM
 // writer (io/bamwriter.py) and any bulk .gz output. Returns 0, or -1
 // if a block failed to compress into its slot.
+#ifdef MANTA_ZLIB
+struct libdeflate_compressor { z_stream zs; };
+static libdeflate_compressor* libdeflate_alloc_compressor(int level) {
+  auto* c = new libdeflate_compressor();
+  if (deflateInit2(&c->zs, std::min(level, 9), Z_DEFLATED, -15, 8,
+                   Z_DEFAULT_STRATEGY) != Z_OK) {
+    delete c;
+    return nullptr;
+  }
+  return c;
+}
+static void libdeflate_free_compressor(libdeflate_compressor* c) {
+  deflateEnd(&c->zs);
+  delete c;
+}
+static size_t libdeflate_deflate_compress(libdeflate_compressor* c,
+                                          const void* in, size_t in_nbytes,
+                                          void* out, size_t out_nbytes_avail) {
+  if (deflateReset(&c->zs) != Z_OK) return 0;
+  c->zs.next_in = (Bytef*)in;
+  c->zs.avail_in = (uInt)in_nbytes;
+  c->zs.next_out = (Bytef*)out;
+  c->zs.avail_out = (uInt)out_nbytes_avail;
+  const int rc = deflate(&c->zs, Z_FINISH);
+  return rc == Z_STREAM_END ? out_nbytes_avail - c->zs.avail_out : 0;
+}
+static uint32_t libdeflate_crc32(uint32_t crc, const void* buf, size_t len) {
+  return (uint32_t)crc32(crc, (const Bytef*)buf, (uInt)len);
+}
+#else
 extern "C" {
 struct libdeflate_compressor;
 struct libdeflate_compressor* libdeflate_alloc_compressor(int level);
@@ -4131,6 +4199,7 @@ size_t libdeflate_deflate_compress(struct libdeflate_compressor*,
                                    void* out, size_t out_nbytes_avail);
 uint32_t libdeflate_crc32(uint32_t crc, const void* buf, size_t len);
 }
+#endif
 
 extern "C" int mt_bgzf_deflate_batch(
     int64_t n_blocks, const uint8_t* data, const int64_t* off,

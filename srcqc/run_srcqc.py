@@ -29,7 +29,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PY_ROOTS = ["manta_tpu", "tests", "benchmarks", "srcqc",
-            "bench.py", "__graft_entry__.py"]
+            "bench.py", "chip_smoke.py", "__graft_entry__.py"]
 
 # import names that exist for side effects / re-export by convention
 SIDE_EFFECT_IMPORTS = {"__future__"}

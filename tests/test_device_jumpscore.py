@@ -1,6 +1,7 @@
 """Device batched jump-SWG scores vs the native aligner (exact)."""
 
 import numpy as np
+import pytest
 
 from manta_tpu.align.aligners import AlignmentScores, GlobalJumpAligner
 from manta_tpu.align.device_jumpscore import jump_scores
@@ -10,7 +11,7 @@ JUMP = -100
 
 
 def _rand_seq(rng, n):
-    return bytes(rng.choice(list(b"ACGT"), n))
+    return rng.choice(list(b"ACGT"), n).astype(np.uint8).tobytes()
 
 
 def test_device_jump_scores_match_native():
@@ -59,13 +60,16 @@ def test_device_jump_scores_small_jump_penalty():
     np.testing.assert_array_equal(got, np.array(want, np.int32))
 
 
-def test_native_score_batch_matches_full_aligner():
+@pytest.mark.parametrize("jump", [JUMP, -10])
+def test_native_score_batch_matches_full_aligner(jump):
     """The host score-only batch (mt_align_jump_score_batch) must give
     the full traceback aligner's scores exactly — winner selection on
-    these scores is then provably identical to aligning everything."""
+    these scores is then provably identical to aligning everything.
+    A cheap jump (-10) exercises the in-column insert chain after a
+    jump, which GCC's -O3 vectorizer once miscompiled."""
     from manta_tpu.align.aligners import jump_score_batch
     rng = np.random.default_rng(23)
-    aln = GlobalJumpAligner(SCORES, JUMP)
+    aln = GlobalJumpAligner(SCORES, jump)
     jobs, want = [], []
     for case in range(40):
         nr1 = int(rng.integers(25, 300))
@@ -86,7 +90,7 @@ def test_native_score_batch_matches_full_aligner():
         res = aln.align(bytes(q), bytes(r1), bytes(r2), seqmatch=False)
         jobs.append((bytes(q), bytes(r1), bytes(r2)))
         want.append(res.score)
-    got = jump_score_batch(jobs, SCORES, JUMP)
+    got = jump_score_batch(jobs, SCORES, jump)
     assert got.tolist() == want
 
 

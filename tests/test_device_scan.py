@@ -36,17 +36,13 @@ def test_device_scan_matches_host(batch):
     d_lnl, d_pos = ctx.scan_multi(
         50, batch, read_idx, qconv, targets, bp_ranges)
     assert d_lnl.shape == h_lnl.shape == (96, 2)
-    # on TPU the kernel is bit-identical to the host scan (verified on
-    # hardware); the CPU test backend contracts multiplies into FMAs,
-    # leaving ~1e-5 noise, so scores get a tolerance here while the
-    # argmax positions must still agree exactly
     # the exact kernel accumulates bases in the host scan's order
     assert np.array_equal(h_lnl, d_lnl)
     assert np.array_equal(h_pos, d_pos)
 
 
 def test_device_scan_mxu_matches_host(batch):
-    """The MXU (matmul) production route agrees with the host scan to
+    """The matrix-product ('mxu') production route agrees with the host scan to
     float tolerance; winner positions match except on near-ties."""
     from manta_tpu.scoring.device_scan import DeviceScanContext
     qconv = QscoreSnp(1e-3)

@@ -212,7 +212,7 @@ def test_rg_keep_mask_native(tumor_bam):
 
 def test_node_mem_override_scales_caches():
     """MANTA_TPU_NODE_GB caps IO-cache sizing as if the node were that
-    small (the FFPE-depth memory experiment knob, docs/PERF_r03.md)."""
+    small (the FFPE-depth memory experiment knob)."""
     import subprocess
     import sys
     out = subprocess.run(

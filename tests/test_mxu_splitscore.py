@@ -1,9 +1,9 @@
-"""MXU (matmul) split-read scorer vs the exact gather kernel.
+"""Matrix-product ('mxu') split-read scorer vs the exact gather kernel.
 
-The MXU formulation shares one target per junction across all its
-reads; parity is checked against batched_split_score on the same
+The matrix-product formulation shares one target per junction across
+all its reads; parity is checked against batched_split_score on the same
 (read, target) pairs. Scores agree to ~1e-4 (bf16 hi/lo kernel split,
-float32 MXU accumulation); winner positions must agree wherever the
+float32 accumulation); winner positions must agree wherever the
 score landscape is not a near-tie.
 """
 

@@ -3,7 +3,7 @@ mismap model invariants, and a fast end-to-end slice.
 
 The at-scale behavior (graph complexity abort firing, precision under
 segdup mismapping) is measured in benchmarks/wgs_workload.py --repeats
---check and recorded in docs/PERF_r04.md; these tests pin the
+--check; these tests pin the
 machinery itself. (reference: SVLocusSetOptions.hpp:50-54 abort
 semantics; methods.tex:406 flank-uniqueness filter.)
 """

@@ -1,6 +1,6 @@
 """Sequence-parallel (scan-axis-sharded) split scoring vs the
-single-device MXU kernel on a virtual CPU mesh: scores bit-equal,
-positions equal under the lowest-position tie rule, and a 2-D
+single-device matrix-product kernel on a virtual CPU mesh: scores
+bit-equal, positions equal under the lowest-position tie rule, and a 2-D
 (junction x scan) mesh also compiles and matches."""
 
 import numpy as np

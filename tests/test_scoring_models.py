@@ -139,7 +139,7 @@ def test_small_hom_dup_called_het_ambiguity_pin():
     while L(hom) pays ~log(0.01) for every clean-interior fragment.
     The reference's identical model shares this bias — this test is
     the regression-proof artifact for the WGS checker's observed
-    gt_acc of 85-92% on small hom DUPs (docs/PERF_r03.md).
+    gt_acc of 85-92% on small hom DUPs.
 
     Round 5: the production default (dup_gt_model="tandem-aware")
     corrects this with tandem-structure fractions + a depth term (see

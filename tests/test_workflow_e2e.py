@@ -226,7 +226,7 @@ def test_device_scoring_matches_oracle(tmp_path_factory, demo_fasta,
     exactly (float32 accumulation order / int32 DP), so device routing
     is purely a performance choice (reference: SVScorerSplit.cpp:130,
     GlobalJumpAlignerImpl.hpp). Runs on whatever the session JAX backend
-    is (CPU in CI, TPU on hardware)."""
+    is (CPU here, the GPU on a card)."""
     run_dir = str(tmp_path_factory.mktemp("device_run"))
     run_workflow([normal_bam], [tumor_bam], demo_fasta, run_dir,
                  is_exome=True, verbose=False, use_device_scoring="exact")
